@@ -2,8 +2,8 @@
 """End-to-end analytics walkthrough on the tpu_qe query engine.
 
 A miniature star-schema workload over spatial event data, exercising the
-whole operator surface on one chip (every step is the same machinery that
-runs at 100M-1B rows in BASELINE.md):
+whole operator surface on one device (every step is the same machinery
+the engine runs at 100M-1B rows):
 
   1. morton-encode event coordinates into u64 spatial cell keys
   2. filter events by a predicate (stable compaction)
@@ -89,7 +89,7 @@ def main() -> None:
           top.table.to_numpy()["key"][:5].tolist(), "events")
 
     # --- 6. fused join -> GROUP BY via the key-sorted stream -------------
-    # the join's natural TPU output is the merged key-sorted stream;
+    # the join's natural output is the merged key-sorted stream;
     # aggregating it directly (group_aggregate_sorted) skips both the
     # join restore sort and the aggregate's own key sort — two of the
     # four large sorts of the unfused pipeline. Integer sums are exact
@@ -197,7 +197,7 @@ def main() -> None:
           f"gain sum")
 
     # --- 14. SQL out-of-core: a virtual table bigger than one program ----
-    # (miniature; the same call runs 1B rows -> 9.3 s on a v5e chip)
+    # (miniature; chip_smoke.py runs the same call at 1B rows)
     import jax.numpy as jnp2
     from tpu_qe.hashing import murmur_fmix32
     db.register_virtual("big", (1 << 16) + 17, {

@@ -65,7 +65,7 @@ def test_fuzz_sort_backends_vs_oracle(seed):
             & ((np.uint64(1) << np.uint64(dup_bits)) - np.uint64(1)))
     payload = np.arange(n, dtype=np.uint32)
     want_k, want_p = native.lsd_sort(keys, payload)
-    for backend in ("xla", "hybrid"):
+    for backend in ("xla", "xla_tiebreak"):
         got_k, got_p = sort_u64_numpy(keys, payload, backend=backend)
         np.testing.assert_array_equal(got_k, want_k, err_msg=backend)
         np.testing.assert_array_equal(got_p, want_p, err_msg=backend)

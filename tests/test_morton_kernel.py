@@ -1,52 +1,15 @@
-"""Pallas morton LUT kernel vs the jnp LUT path and the native builder."""
+"""Morton encoding paths (points, quirk-mode LUT) vs the native builder."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from tpu_qe import morton, native
-from tpu_qe.kernels.morton import encode_quantized_lut as pallas_encode
 
 
 def _params(seed=7):
     verts, tris, smin, smax = native.scene_generate(200, 600, seed)
     return morton.MortonParams.for_scene(smin, smax), verts, tris
-
-
-def test_matches_jnp_lut_path():
-    import jax.numpy as jnp
-
-    params, verts, tris = _params()
-    rng = np.random.default_rng(0)
-    n = 8 * 128 * 3
-    q = rng.integers(0, 1 << 20, (n, 3), dtype=np.uint32)
-    j = rng.integers(0, 1 << 12, n, dtype=np.uint32)
-    got = pallas_encode(jnp.asarray(q), jnp.asarray(j),
-                        params.lut_lo, params.lut_hi, block_rows=8)
-    want = morton.encode_quantized_lut(jnp.asarray(q), jnp.asarray(j), params)
-    np.testing.assert_array_equal(np.asarray(got.lo), np.asarray(want.lo))
-    np.testing.assert_array_equal(np.asarray(got.hi), np.asarray(want.hi))
-
-
-def test_matches_native_end_to_end():
-    import jax.numpy as jnp
-
-    params, verts, tris = _params(seed=11)
-    gen = native.MortonGen(
-        np.asarray(params.offset),  # offset == scene_min in the builder
-        np.asarray(params.offset) + 1.0 / np.asarray(params.multiplier)
-        * (1 << 20))
-    # quantize on device, encode via pallas, compare with the direct path
-    q, j = morton.quantize(jnp.asarray(verts),
-                           jnp.asarray(tris.astype(np.int32)), params)
-    n = q.shape[0]
-    pad = -(-n // 1024) * 1024 - n
-    qp = jnp.pad(q, ((0, pad), (0, 0)))
-    jp = jnp.pad(j, (0, pad))
-    got = pallas_encode(qp, jp, params.lut_lo, params.lut_hi, block_rows=8)
-    want = morton.encode_quantized(q, j)
-    np.testing.assert_array_equal(np.asarray(got.lo)[:n], np.asarray(want.lo))
-    np.testing.assert_array_equal(np.asarray(got.hi)[:n], np.asarray(want.hi))
 
 
 def test_encode_points_matches_degenerate_triangles():
@@ -68,8 +31,8 @@ def test_encode_points_matches_degenerate_triangles():
 class TestQuirkLutMode:
     """Quirk-faithful consumption of the shipped reference kernel
     (morton_code.wgsl:72-74: i*3 byte shift where the LUT layout implies
-    i*8). Given identical LUT content, every layer — C++ oracle, XLA LUT
-    path, Pallas LUT kernel — must agree byte-exactly in quirk mode."""
+    i*8). Given identical LUT content, the C++ oracle and the XLA LUT path
+    must agree byte-exactly in quirk mode."""
 
     def _scene(self, n_tris=3000):
         from tpu_qe import native
@@ -95,21 +58,6 @@ class TestQuirkLutMode:
         a = gen.encode(verts, tris, quirk=False)
         b = gen.encode(verts, tris, quirk=True)
         assert not np.array_equal(a, b)  # the quirk is observable
-
-    def test_pallas_quirk_kernel_matches_cpp(self):
-        import jax.numpy as jnp
-        import numpy as np
-        from tpu_qe import morton, native
-        from tpu_qe.kernels.morton import encode_quantized_lut as pallas_lut
-        verts, tris, gen = self._scene(4096)
-        want = gen.encode(verts[: , :], tris[:4096], quirk=True)
-        params = morton.MortonParams.from_native(gen)
-        q4 = gen.quantize(verts, tris[:4096]).reshape(-1, 4)
-        q = jnp.asarray(q4[:, :3])
-        j = jnp.asarray(q4[:, 3])
-        got = pallas_lut(q, j, params.lut_lo, params.lut_hi,
-                         quirk_shift=True)
-        np.testing.assert_array_equal(got.to_numpy(), want)
 
     def test_dump_quirk_byte_match(self, tmp_path):
         # `dump --quirk-lut` must byte-match the quirk-mode C++ oracle

@@ -535,6 +535,26 @@ class TestMultiAggregate:
         np.testing.assert_array_equal(np.asarray(m.aggs["a_min"])[:ng],
                                       np.asarray(ref.aggs["min"])[:ng])
 
+    @pytest.mark.parametrize("max_groups", [None, 1 << 12])
+    def test_float_sum_error_is_per_group(self, max_groups):
+        # f32 group sums must carry each group's own rounding error, not
+        # the ulp of a running prefix over all rows before the group
+        from tpu_qe.bits import U64
+        from tpu_qe.ops.aggregate import group_aggregate_multi
+
+        rng = np.random.default_rng(19)
+        n, g = 1 << 18, 1 << 12
+        keys = rng.integers(0, g, n).astype(np.uint64)
+        f = rng.random(n, dtype=np.float32)
+        m = group_aggregate_multi(U64.from_numpy(keys), {"f": jnp.asarray(f)},
+                                  {"f": ("sum", "count")},
+                                  max_groups=max_groups)
+        ng = int(m.num_groups)
+        want = np.bincount(keys.astype(np.int64), f.astype(np.float64), g)
+        got = np.asarray(m.aggs["f_sum"])[:ng].astype(np.float64)
+        np.testing.assert_allclose(got, want[m.key.to_numpy()[:ng]
+                                             .astype(np.int64)], rtol=1e-5)
+
 
 def test_table_group_by_multi():
     rng = np.random.default_rng(23)

@@ -1,6 +1,6 @@
 """Virtual x virtual JOIN -> GROUP BY (sql/bigexec._vv_agg_partials):
 both sides of the join are out-of-core virtual tables — neither ever
-crosses the tunnel. Oracle: the in-core SQL engine over the SAME
+crosses to the host. Oracle: the in-core SQL engine over the SAME
 materialized data.
 
 The run_size is chosen so the bucket plan cuts MULTIPLE key-space

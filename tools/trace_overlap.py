@@ -9,9 +9,9 @@ shows k independent (all_to_all -> per-chunk sort) pairs whose sorts
 interleave with later collectives, versus one barrier-shaped
 all_to_all -> sort chain for the monolithic path.
 
-Only one real TPU chip is reachable in this environment, so the
-multi-device schedule is captured on the virtual CPU mesh; on a real
-pod slice the same program (same HLO collective structure) applies.
+On a host with fewer devices than --n-dev the run stops with an error;
+the command above gives the CPU backend eight virtual devices. On GPUs
+the same program (same HLO collective structure) runs over NCCL.
 """
 
 from __future__ import annotations
@@ -42,10 +42,10 @@ def main() -> None:
     from tpu_qe.exchange import distributed_sort, make_mesh
     from tpu_qe.utils.profiling import marker, trace_session
 
-    devices = jax.devices()
-    if len(devices) < args.n_dev:
-        devices = jax.devices("cpu")
-    mesh = make_mesh(args.n_dev, devices=devices)
+    if len(jax.devices()) < args.n_dev:
+        raise SystemExit(f"need {args.n_dev} devices, have "
+                         f"{len(jax.devices())} ({jax.devices()[0].platform})")
+    mesh = make_mesh(args.n_dev)
     sh = NamedSharding(mesh, P("x"))
 
     rng = np.random.default_rng(7)

@@ -1,8 +1,8 @@
-"""Speed-of-light model for the sort/query kernels.
+"""Peak memory bandwidth per device kind, and bytes-over-peak bounds.
 
-The reference publishes no numbers (SURVEY.md §6); per BASELINE.md the
-performance target is defined against the HBM-bandwidth speed of light:
-bytes that MUST move per pass, divided by peak HBM bandwidth.
+The least time a memory-bound operation can take is the bytes it must move
+divided by the device's peak memory bandwidth. The reference publishes no
+numbers (SURVEY.md §6), so this bound is the yardstick.
 
 Bytes-moved model for one LSD radix pass over n elements:
   read keys (8B) + payload (4B per u32 column)
@@ -12,38 +12,41 @@ Bytes-moved model for one LSD radix pass over n elements:
 A fused single-kernel pass therefore moves 2 * (8 + 4*p) bytes per element;
 a split histogram+scatter pipeline (like the reference's, which reads keys
 in both kernels) adds one more key read.
+
+A device kind missing from the table is an error, never a default. On the
+CPU backend there is no device bound: the functions return None ("not
+measured").
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 
-# Peak HBM bandwidth per chip, bytes/s.
-_HBM_PEAK = {
-    "v5e": 819e9,       # TPU v5 lite
-    "v5litepod": 819e9,
-    "v4": 1228e9,
-    "v5p": 2765e9,
-    "v6e": 1640e9,
+# Peak device-memory bandwidth in bytes/s, keyed by jax's device_kind.
+# Source: NVIDIA H100 Tensor Core GPU data sheet (SXM5 80 GB HBM3:
+# 3.35 TB/s; PCIe 80 GB HBM2e: 2.0 TB/s).
+HBM_PEAK = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,   # H100 SXM5
+    "NVIDIA H100 PCIe": 2.0e12,         # H100 PCIe
 }
 
 
-@functools.cache
 def device_kind() -> str:
+    return jax.devices()[0].device_kind
+
+
+def hbm_peak_bytes_per_s(device=None) -> float | None:
+    """Peak memory bandwidth of `device` (default: the first device);
+    None on the CPU backend; KeyError for a kind the table lacks."""
+    device = device or jax.devices()[0]
+    if device.platform == "cpu":
+        return None
     try:
-        return jax.devices()[0].device_kind.lower()
-    except Exception:
-        return "unknown"
-
-
-def hbm_peak_bytes_per_s() -> float:
-    kind = device_kind()
-    for k, v in _HBM_PEAK.items():
-        if k in kind.replace(" ", ""):
-            return v
-    return _HBM_PEAK["v5e"]
+        return HBM_PEAK[device.device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak bandwidth for device kind {device.device_kind!r}: "
+            "add it to tpu_qe.bench.sol.HBM_PEAK with its source") from None
 
 
 def sort_pass_bytes(n: int, payload_cols: int = 1, key_bytes: int = 8,
@@ -54,187 +57,16 @@ def sort_pass_bytes(n: int, payload_cols: int = 1, key_bytes: int = 8,
 
 
 def sort_sol_seconds(n: int, num_passes: int, payload_cols: int = 1,
-                     key_bytes: int = 8, fused: bool = True) -> float:
-    return (num_passes * sort_pass_bytes(n, payload_cols, key_bytes, fused)
-            / hbm_peak_bytes_per_s())
+                     key_bytes: int = 8, fused: bool = True
+                     ) -> float | None:
+    peak = hbm_peak_bytes_per_s()
+    if peak is None:
+        return None
+    return num_passes * sort_pass_bytes(n, payload_cols, key_bytes,
+                                        fused) / peak
 
 
-# --------------------------------------------------------------------------
-# Operator envelope model (v5e-calibrated primitive costs)
-#
-# The sort-based operators compose three primitive shapes; their envelope
-# is the sum of the primitives' own envelopes, so sol_fraction tells how
-# much slack remains in the operator GLUE (1.0 = the operator costs
-# exactly what its irreducible primitives cost on this hardware). The
-# constants are calibrated to ~±25%: fractions near or ABOVE 1.0 mean the
-# fused operator leaves no measurable slack (XLA fuses/overlaps more than
-# the sum-of-primitives model credits — e.g. filter+GROUP BY measures
-# 1.24 because the variadic sort's payload operands cost less than full
-# key-comparison weight). Fractions well below 1.0 are the actionable
-# signal (the round-1 join measured 0.6 before the gather was removed;
-# 0.82 after):
-#
-#   lax.sort    VPU comparison-sort envelope. MEASURED on chip
-#               (tools/calibrate_sol.py, 2026-08-17, chained differential
-#               timing at 64M): stable 3-op 345 ms -> _SORT_C 2.54e-12;
-#               unstable/stable ratio 0.750.
-#   scan        cummax / segmented strided-fill full scans. MEASURED
-#               (same run): 64M 1-op cummax 54.2 ms, 3-op segmented
-#               last-valid fill 62.5 ms -> cost = n*(BASE + PER_OP*ops):
-#               the log2(n) strided sweeps dominate (BASE ~7.5e-10 s/elem)
-#               and extra operand planes ride along nearly free
-#               (~0.6e-10 s/elem/op). The round-2 fit (60e-12 per op)
-#               underpriced full scans ~10x; two-point fit, +-15%.
-#   elementwise streaming pass at HBM peak (read + write per operand).
-# --------------------------------------------------------------------------
-
-# Round-5 recalibration (tools/calibrate_sort_scale.py, 2026-08-20,
-# chained differential timing of 3 mixes x 3 sizes on the chip —
-# round5_calibration.out). The 9 measurements solve to a 4-parameter
-# model that reproduces every point to < 1%:
-#   per-KEY stable cost C(n) = C0 * (1 + SCALE * (log2 n - 26))
-#     (the log2^2 form alone underpriced 200M+ sorts — VERDICT r4
-#      weak #2; measured slope ~+4.9%/log2 above the 64M point)
-#   payload operands cost 0.07 of a key operand (the 2026-08-17 value
-#     of 0.59 was ~8x too high — payload planes ride nearly free)
-#   unstable sorts cost 0.672x stable (was modeled 0.75)
-_SORT_C = 2.837e-12      # s per element * log2(n)^2 * KEY operand,
-                         # stable, at n = 2^26 (s2k1p 268.2 ms)
-_SORT_SCALE = 0.049      # fractional growth of _SORT_C per log2(n)
-                         # above 26 (2^27: 2.97e-12, 2^28: 3.12e-12)
-_SORT_PAYLOAD = 0.07     # payload-operand cost as a fraction of a key
-                         # operand (u3k1p vs u1k1p at all 3 sizes)
-_SORT_UNSTABLE = 0.672   # measured stable->unstable ratio (all sizes
-                         # agree: 0.672-0.678)
-_SCAN_BASE = 7.5e-10     # s per element: the full log2(n)-sweep scan's
-                         # fixed cost (v5e, measured 2026-08-17)
-_SCAN_PER_OP = 0.6e-10   # s per element per additional operand plane
-
-
-def lax_sort_seconds(n: int, num_operands: int, stable: bool = True,
-                     num_keys: int | None = None) -> float:
-    """Envelope of one flat variadic lax.sort on this hardware class.
-
-    num_keys (default: all operands are keys): key operands pay
-    comparison + movement; payload operands ride nearly free, measured
-    at 0.07x a key operand on v5e (round-5 recalibration)."""
-    import numpy as np
-    if num_keys is None:
-        num_keys = num_operands
-    eff = num_keys + _SORT_PAYLOAD * (num_operands - num_keys)
-    f = 1.0 if stable else _SORT_UNSTABLE
-    lg = np.log2(max(n, 2))
-    c = _SORT_C * max(1.0 + _SORT_SCALE * (lg - 26.0), 0.7)
-    return float(n * lg ** 2 * c * eff * f)
-
-
-def scan_seconds(n: int, num_operands: int = 1) -> float:
-    """Envelope of one full cummax/segmented-fill scan over n elements
-    (all log2(n) sweeps; measured model, see module note)."""
-    return float(n * (_SCAN_BASE + _SCAN_PER_OP * num_operands))
-
-
-def elementwise_seconds(n: int, num_operands: int = 1) -> float:
-    return 2.0 * n * 4 * num_operands / hbm_peak_bytes_per_s()
-
-
-def join_scan_sol_seconds(n_l: int, n_r: int, value_planes: int = 1) -> float:
-    """Envelope of join_fk_scan: one (3+P)-operand sort of the combined
-    stream, one segmented forward-fill scan, one (1+P)-operand restore
-    sort (the match flag rides bit 0 of the restore key), plus
-    boundary-detect sweeps."""
-    m = n_l + n_r
-    return (lax_sort_seconds(m, 3 + value_planes, stable=False, num_keys=3)
-            + scan_seconds(m, 2 + value_planes)
-            + lax_sort_seconds(m, 1 + value_planes, stable=False,
-                               num_keys=1)
-            + elementwise_seconds(m, 3))
-
-
-def group_aggregate_sol_seconds(n: int, n_aggs: int = 2,
-                                has_valid: bool = False) -> float:
-    """Envelope of group_aggregate with count+sum-class aggs: one value
-    sort, boundary sweeps, the exact-u64 pair cumsums (two one-plane
-    scans), and one compaction sort carrying the (lo, hi) pair
-    (count derives from packed positions — no plane)."""
-    ops1 = 3 + (1 if has_valid else 0)   # khi, klo, value (+valid): ALL keys
-    return (lax_sort_seconds(n, ops1, stable=False)
-            + 2 * scan_seconds(n, 1)
-            + elementwise_seconds(n, 3)
-            + lax_sort_seconds(n, 3 + n_aggs, stable=False, num_keys=1))
-
-
-def bigsort_sol_seconds(n: int, run_size: int, n_buckets: int,
-                        payload_cols: int = 1,
-                        strategy: str = "partition") -> float:
-    """Composition envelope of the out-of-core sort (sort/bigsort.py):
-    the sum of its irreducible per-phase lax.sort envelopes at IDEAL
-    bucket balance (cap padding not charged — it is engine slack).
-
-    partition: each run pays ONE single-key bucket-id sort (key planes
-    and payloads ride as ~free payload operands), then each bucket
-    pays the full 3-key sort. merge: each run pays the full 3-key sort
-    up front AND each bucket re-sorts (the round-3 formulation's 2x
-    comparison work). Generation + bucket-id compares ride one
-    streaming pass."""
-    n_runs = max(n // run_size, 1)
-    m_bucket = max(n // max(n_buckets, 1), 1)
-    if strategy == "partition":
-        run_s = lax_sort_seconds(run_size, 3 + payload_cols,
-                                 stable=False, num_keys=1)
-    else:
-        run_s = lax_sort_seconds(run_size, 2 + payload_cols,
-                                 stable=False, num_keys=3)
-    bucket_s = lax_sort_seconds(m_bucket, 2 + payload_cols,
-                                stable=False, num_keys=3)
-    return (n_runs * run_s + n_buckets * bucket_s
-            + elementwise_seconds(n, 2))
-
-
-def bigagg_sol_seconds(n: int, run_size: int, n_aggs: int = 2) -> float:
-    """Composition envelope of the out-of-core GROUP BY
-    (ops/bigagg.py): R per-run group_aggregate programs (the G-bounded
-    host combine is output-scale, not charged)."""
-    n_runs = max(n // run_size, 1)
-    return (n_runs * group_aggregate_sol_seconds(run_size,
-                                                 n_aggs=n_aggs)
-            + elementwise_seconds(n, 1))
-
-
-def bigjoin_sol_seconds(n_l: int, n_r: int, n_buckets: int) -> float:
-    """Composition envelope of the out-of-core FK join
-    (ops/bigjoin.py): one full sort per side + per-bucket scan-joins
-    at ideal bucket balance."""
-    b = max(n_buckets, 1)
-    return (lax_sort_seconds(n_l, 3, stable=False, num_keys=3)
-            + lax_sort_seconds(n_r, 3, stable=False, num_keys=3)
-            + b * join_scan_sol_seconds(max(n_l // b, 1),
-                                        max(n_r // b, 1))
-            + elementwise_seconds(n_l + n_r, 1))
-
-
-def bigpipe_sol_seconds(n_l: int, n_r: int, n_buckets: int) -> float:
-    """Composition envelope of the fused out-of-core join -> GROUP BY
-    (ops/bigpipe.py): the join composition + per-bucket sorted-stream
-    aggregation (two pair-sum scans + one single-key compaction sort
-    per bucket — group_aggregate_sorted's shape)."""
-    b = max(n_buckets, 1)
-    m = max((n_l + n_r) // b, 1)
-    return (bigjoin_sol_seconds(n_l, n_r, n_buckets)
-            + b * (2 * scan_seconds(m, 1)
-                   + lax_sort_seconds(m, 4, stable=False, num_keys=1)))
-
-
-def bigwindow_sol_seconds(n: int, run_size: int,
-                          n_buckets: int) -> float:
-    """Composition envelope of the out-of-core window family
-    (ops/bigwindow.py): R 4-key run sorts (key, order, index, value),
-    B bucket re-sorts, and the segmented window sweeps (~3 scan-class
-    passes over every row)."""
-    n_runs = max(n // run_size, 1)
-    b = max(n_buckets, 1)
-    m = max(n // b, 1)
-    return (n_runs * lax_sort_seconds(run_size, 4, stable=False,
-                                      num_keys=4)
-            + b * lax_sort_seconds(m, 4, stable=False, num_keys=4)
-            + 3 * scan_seconds(n, 1) + elementwise_seconds(n, 1))
+def elementwise_seconds(n: int, num_operands: int = 1) -> float | None:
+    """One streaming read + write of num_operands u32 planes."""
+    peak = hbm_peak_bytes_per_s()
+    return None if peak is None else 2.0 * n * 4 * num_operands / peak

@@ -1,9 +1,8 @@
-"""64-bit keys as (lo, hi) uint32 pairs, and radix digit extraction.
+"""64-bit keys as (lo, hi) uint32 pairs.
 
-TPU cores operate natively on 32-bit lanes, so u64 sort keys are carried as
+The engine keeps x64 off, so u64 sort keys are carried as
 two uint32 arrays — the same representation the reference uses on the GPU
-(morton code buffers hold u64 as 2xu32, /root/reference/src/main.rs:60-74,
-and digit extraction splits on the pair, radix_sort_histogram.wgsl:28-36).
+(morton code buffers hold u64 as 2xu32, reference src/main.rs:60-74).
 
 All functions are jit-safe and shape-polymorphic.
 """
@@ -38,38 +37,6 @@ class U64(NamedTuple):
         lo = np.asarray(self.lo).astype(np.uint64)
         hi = np.asarray(self.hi).astype(np.uint64)
         return lo | (hi << np.uint64(32))
-
-
-def select_digit(lo: jnp.ndarray, hi: jnp.ndarray, shift: int,
-                 bits: int) -> jnp.ndarray:
-    """Extract `bits` key bits starting at `shift` (static) as uint32.
-
-    Generalizes the reference's select_digit/select_digit_8
-    (/root/reference/src/tests.rs:7-24) to any digit width/offset, handling
-    digits that straddle the lo/hi word boundary.
-    """
-    assert 0 < bits <= 16 and 0 <= shift and shift + bits <= 64
-    mask = jnp.uint32((1 << bits) - 1)
-    if shift + bits <= 32:
-        return (lo >> shift) & mask if shift else lo & mask
-    if shift >= 32:
-        s = shift - 32
-        return (hi >> s) & mask if s else hi & mask
-    # straddles the 32-bit boundary
-    lo_part = lo >> shift
-    hi_part = hi << (32 - shift)
-    return (lo_part | hi_part) & mask
-
-
-def digit_schedule(key_bits: int, bits_per_pass: int) -> list[tuple[int, int]]:
-    """LSD pass schedule: list of (shift, bits) covering `key_bits` bits."""
-    out = []
-    shift = 0
-    while shift < key_bits:
-        bits = min(bits_per_pass, key_bits - shift)
-        out.append((shift, bits))
-        shift += bits
-    return out
 
 
 def masked_key(lo: jnp.ndarray, hi: jnp.ndarray, key_bits: int) -> U64:
@@ -140,8 +107,8 @@ def sortable_u32_inverse(b: jnp.ndarray, dtype) -> jnp.ndarray:
 def mul_u32_wide(a: jnp.ndarray, b) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Exact widening u32 x u32 -> u64 multiply as a (lo, hi) u32 pair.
 
-    16-bit limb decomposition with explicit carries (x64 stays off on
-    TPU, so there is no native u64 multiply). b may be a scalar.
+    16-bit limb decomposition with explicit carries (x64 stays off, so
+    there is no native u64 multiply). b may be a scalar.
     """
     b = jnp.uint32(b) if not hasattr(b, "dtype") else b
     a0, a1 = a & jnp.uint32(0xFFFF), a >> 16

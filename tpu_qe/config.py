@@ -27,7 +27,6 @@ class SortConfig:
 
     bits_per_pass: int = constants.BITS_PER_PASS
     num_passes: int = constants.NUM_PASSES
-    block: int = constants.DEFAULT_BLOCK
     backend: str = "xla"
 
     def __post_init__(self):
@@ -38,8 +37,6 @@ class SortConfig:
         # reading the top 4 real bits — tests.rs:116-130).
         if self.bits_per_pass * (self.num_passes - 1) >= 64:
             raise ValueError("pass schedule extends past the 64-bit key")
-        if self.block % 1024:
-            raise ValueError(f"block must be a multiple of 1024: {self.block}")
 
     @property
     def key_bits(self) -> int:
@@ -76,7 +73,6 @@ class EngineConfig:
             sort=SortConfig(
                 bits_per_pass=_env("BITS_PER_PASS", constants.BITS_PER_PASS, int),
                 num_passes=_env("NUM_PASSES", constants.NUM_PASSES, int),
-                block=_env("BLOCK", constants.DEFAULT_BLOCK, int),
                 backend=_env("BACKEND", "xla", str),
             ),
             scene=SceneConfig(

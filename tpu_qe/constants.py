@@ -1,10 +1,9 @@
 """Engine constants.
 
 Mirrors the reference's compile-time configuration
-(/root/reference/src/constants.rs:1-21) where a constant still has meaning on
-TPU, and adds the TPU-native tiling constants. Unlike the reference, runtime
-problem sizes are configurable (tpu_qe.config.SortConfig); these are the
-defaults and hardware-shape constants.
+(reference src/constants.rs:1-21) where a constant still has meaning
+here. Unlike the reference, runtime problem sizes are configurable
+(tpu_qe.config.SortConfig); these are the defaults.
 """
 
 # Reference-parity scene defaults (constants.rs:1-3,21)
@@ -14,21 +13,9 @@ RNG_SEED = 7
 
 # Radix configuration (constants.rs:5-7,19)
 BITS_PER_PASS = 8
-RADIX = 1 << BITS_PER_PASS          # HISTOGRAM_SIZE in the reference
 NUM_PASSES = 8                      # 8 x 8 bits = full 64-bit key
 
 # Morton code layout (tpu_qe/cpp/core.cc)
 COORD_BITS = 20
 SIZE_BITS = 4
 SIZE_INDEX_BITS = 12
-
-# TPU tiling: VPU lanes are 8x128; all block sizes are multiples of 1024 so
-# every VMEM tile is lane-aligned for u32 data.
-LANES = 128
-SUBLANES = 8
-
-# Default keys-per-block for the sort kernels. The reference uses 256
-# (WORKGROUP_SIZE, constants.rs:9) because a GPU workgroup is 256 threads; on
-# TPU the natural block is what fits VMEM, and bigger blocks mean longer
-# digit runs and fewer DMA descriptors in the scatter phase.
-DEFAULT_BLOCK = 1 << 16

@@ -1,5 +1,5 @@
 // tpu_qe native core: deterministic data generation, extended-morton LUT
-// construction, and bit-exact scalar oracles for the TPU sort/query engine.
+// construction, and bit-exact scalar oracles for the sort/query engine.
 //
 // This is the C++ counterpart of the reference repo's Rust host-side compute
 // (see /root/reference/src/main.rs:114-233 for scene + LUT glue and
@@ -7,11 +7,13 @@
 // a live, enabled component here). Exposed through a plain C ABI and loaded
 // from Python via ctypes (tpu_qe/native.py).
 //
-// Build: `make` in this directory -> libtpuqe.so
+// Build: `make` in this directory -> libqecore.so (tpu_qe.native builds
+// it on first use).
 //
 // IMPORTANT: compiled with -ffp-contract=off so float expressions evaluate
-// with the exact same op-by-op rounding as the JAX/Pallas kernels (no FMA
-// contraction), keeping morton quantization bit-exact across oracle/TPU.
+// with the exact same op-by-op rounding as the JAX code (no FMA
+// contraction), keeping morton quantization bit-exact across oracle and
+// device.
 
 #include <cstdint>
 #include <cstring>

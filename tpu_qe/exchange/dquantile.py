@@ -8,8 +8,7 @@ over the u64 domain is solved by 64 greedy bit rounds — each round ONE
 binary search per device over its locally sorted shard (O(log n_local)
 scalar gathers) plus ONE psum of a (Q,) count vector. Total
 interconnect: 64 scalar-vector psums, no all_to_all, no row exchange —
-the cheapest possible distributed operator on this transport (the
-headline cost model in BASELINE.md prices a row exchange at
+the cheapest possible distributed operator (a row exchange moves
 16-20 B/row x (1 - 1/D); this is O(Q) bytes per round).
 
 All Q quantiles ride the same rounds (the count probe vectorizes over

@@ -1,10 +1,10 @@
-"""Distributed sort over a TPU device mesh (shard_map + collectives).
+"""Distributed sort over a device mesh (shard_map + collectives).
 
 The reference is single-device — its only "transport" is one wgpu queue
 submit (/root/reference/src/main.rs:727) and its cross-workgroup
 communication is storage buffers between dispatches. This module is the
 multi-chip generalization mandated by the build plan (SURVEY.md §2c):
-a keyed shuffle over ICI built from jax collectives under shard_map.
+a keyed shuffle built from jax collectives under shard_map.
 
 Algorithm — splitter-based sample sort (skew-robust):
 

@@ -9,8 +9,8 @@ compose into the distributed operators:
                      splitters (skew-robust: Zipf keys still balance)
   route_by_splitters dest device = #(splitters < key)
   exchange           stable local partition by dest + padded fixed-size
-                     all_to_all over ICI with exact per-pair counts and
-                     overflow detection (static shapes: the TPU-native
+                     all_to_all with exact per-pair counts and
+                     overflow detection (static shapes: the jit-friendly
                      stand-in for a ragged all_to_all). Two-tier capacity:
                      diagonal (stay-local) rows bypass the collective with
                      full n_local capacity; only off-diagonal buckets pay

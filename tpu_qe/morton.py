@@ -1,4 +1,4 @@
-"""Extended-morton encoding on TPU (JAX).
+"""Extended-morton encoding on the device (JAX).
 
 Equivalent of the reference's morton kernel (morton_code.wgsl:91-335): per
 triangle, gather 3 vertices, compute the AABB, quantize the centroid to
@@ -7,10 +7,9 @@ triangle, gather 3 vertices, compute the AABB, quantize the centroid to
 
 Two key-construction paths are provided:
 
-- ``encode_quantized`` (default): direct bit-interleave. On TPU a handful of
-  shift/or VPU ops per element beats any table lookup — gathers are the one
-  thing the reference's LUT design optimizes on GPU that a vector core does
-  not want.
+- ``encode_quantized`` (default): direct bit-interleave — a handful of
+  elementwise shift/or ops per element that XLA fuses, with no table
+  lookups.
 - ``encode_quantized_lut``: the reference's LUT formulation (9 groups x 256
   bytes + 4096-entry size LUT, morton_code.wgsl:42-46,113-126), used to
   validate LUT semantics against the native builder and kept for parity.
@@ -27,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from tpu_qe import native
-from tpu_qe.bits import U64
+from tpu_qe.bits import U64, mul_u32_wide
 from tpu_qe.constants import COORD_BITS, SIZE_BITS, SIZE_INDEX_BITS
 
 _COORD_MAX = (1 << COORD_BITS) - 1
@@ -75,6 +74,47 @@ class MortonParams(NamedTuple):
             native.MortonGen(np.asarray(scene_min), np.asarray(scene_max)))
 
 
+def _rounded(x: jnp.ndarray) -> jnp.ndarray:
+    """x, rounded to f32 before its consumer sees it.
+
+    An identity for finite x that keeps XLA's fused code from contracting
+    a multiply into the add that follows it: an FMA rounds once where the
+    -ffp-contract=off C++ oracle rounds twice, which moves cells at
+    quantization boundaries. ``optimization_barrier`` does not do this on
+    the CPU and GPU backends, which expand it before fusion.
+    """
+    return jnp.minimum(x, jnp.float32(np.finfo(np.float32).max))
+
+
+def round_sqrt(x: jnp.ndarray, s: jnp.ndarray) -> jnp.ndarray:
+    """The correctly rounded f32 sqrt of x, from an estimate s within two
+    ulps of it (the C++ oracle's sqrtf is correctly rounded; the GPU's
+    sqrt can be an ulp off).
+
+    Starting two ulps below s, a candidate c = C * 2^(ec-150) steps up
+    while x lies above the square of its upper rounding midpoint
+    (2C+1) * 2^(ec-151). With x = X * 2^(ex-150) that test is the integer
+    comparison X * 2^(ex - 2ec + 152) > (2C+1)^2, both below 2^54 and
+    never equal (the right side is odd and wider than 24 bits).
+    Zero, denormal and non-finite x keep s.
+    """
+    xb = x.view(jnp.uint32)
+    ex = (xb >> 23).astype(jnp.int32)
+    big = (xb & jnp.uint32(0x7FFFFF)) | jnp.uint32(0x800000)
+    normal = (ex >= 1) & (ex <= 254)
+    r = s.view(jnp.uint32) - jnp.uint32(2)
+    for _ in range(4):
+        ec = (r >> 23).astype(jnp.int32)
+        m = (((r & jnp.uint32(0x7FFFFF)) | jnp.uint32(0x800000))
+             << 1) | jnp.uint32(1)
+        mlo, mhi = mul_u32_wide(m, m)
+        k = jnp.clip(ex - 2 * ec + 152, 1, 31).astype(jnp.uint32)
+        xlo, xhi = big << k, big >> (jnp.uint32(32) - k)
+        up = normal & ((xhi > mhi) | ((xhi == mhi) & (xlo > mlo)))
+        r = r + up.astype(jnp.uint32)
+    return jnp.where(normal, r.view(jnp.float32), s)
+
+
 def quantize(verts: jnp.ndarray, tris: jnp.ndarray,
              params: MortonParams) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Quantize triangle centroids/sizes.
@@ -85,26 +125,19 @@ def quantize(verts: jnp.ndarray, tris: jnp.ndarray,
 
     Returns (q (T,3) u32 cell coords, j (T,) u32 size index).
     """
-    import jax
-
     v0 = jnp.take(verts, tris[:, 0], axis=0)
     v1 = jnp.take(verts, tris[:, 1], axis=0)
     v2 = jnp.take(verts, tris[:, 2], axis=0)
     mn = jnp.minimum(jnp.minimum(v0, v1), v2)
     mx = jnp.maximum(jnp.maximum(v0, v1), v2)
     c = (mn + mx) * jnp.float32(0.5)
-    # optimization_barrier pins the float op order ACROSS compiles:
-    # without it XLA may contract x*m - 0.001 into an FMA in one program
-    # and not another (observed: SPMD vs single-device compiles disagreed
-    # on ~0.3% of cells at quantization boundaries), breaking the
-    # bit-exactness contract with the -ffp-contract=off C++ oracle.
-    prod = jax.lax.optimization_barrier((c - params.offset)
-                                        * params.multiplier)
+    prod = _rounded((c - params.offset) * params.multiplier)
     val = prod - jnp.float32(0.001)
     q = jnp.clip(val, 0.0, float(_COORD_MAX)).astype(jnp.uint32)
     ext = mx - mn
-    sq = jax.lax.optimization_barrier(ext * ext)
-    length = jnp.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
+    sq = _rounded(ext * ext)
+    l2 = sq[..., 0] + sq[..., 1] + sq[..., 2]
+    length = round_sqrt(l2, jnp.sqrt(l2))
     j = jnp.clip(length * params.size_multiplier, 0.0,
                  float(_SIZE_INDEX_MAX)).astype(jnp.uint32)
     return q, j
@@ -179,12 +212,8 @@ def quantize_points(x: jnp.ndarray, y: jnp.ndarray, z: jnp.ndarray,
     with the point itself as the centroid and `size` as the AABB diagonal
     length (0 when None).
     """
-    import jax
-
     c = jnp.stack([x, y, z], axis=-1)
-    # same cross-compile FMA pinning as quantize() above
-    prod = jax.lax.optimization_barrier((c - params.offset)
-                                        * params.multiplier)
+    prod = _rounded((c - params.offset) * params.multiplier)
     val = prod - jnp.float32(0.001)
     q = jnp.clip(val, 0.0, float(_COORD_MAX)).astype(jnp.uint32)
     if size is None:
@@ -201,8 +230,7 @@ def encode_points(x: jnp.ndarray, y: jnp.ndarray, z: jnp.ndarray,
     """Extended-morton keys for columnar point data (f32 columns).
 
     The query-engine-scale entry point: rows are (x, y, z[, size]) columns
-    of a Table; no triangle index gathers. Uses the direct bit-interleave
-    (measured ~50% of HBM speed-of-light on v5e — BASELINE.md).
+    of a Table; no triangle index gathers. Uses the direct bit-interleave.
     """
     q, j = quantize_points(x, y, z, size, params)
     return encode_quantized(q, j)

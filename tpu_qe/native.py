@@ -3,21 +3,22 @@
 The native library holds the host-side compute the reference implements in
 Rust (scene generation, morton LUT construction, CPU oracles — cf.
 /root/reference/src/main.rs:114-233,923-1028). It is built on demand with
-`make` the first time it is imported.
+`make` the first time it is loaded, into a path keyed by the source and the
+host's architecture, so a library built elsewhere is never reused.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _CPP_DIR = os.path.join(os.path.dirname(__file__), "cpp")
-_LIB_PATH = os.path.join(_CPP_DIR, "libtpuqe.so")
-_SRC_PATH = os.path.join(_CPP_DIR, "core.cc")
 
 _lock = threading.Lock()
 _lib = None
@@ -32,8 +33,29 @@ from tpu_qe.constants import (COORD_BITS, SIZE_BITS,  # noqa: E402,F401
                               SIZE_INDEX_BITS)
 
 
-def _build() -> None:
-    subprocess.run(["make", "-s"], cwd=_CPP_DIR, check=True)
+def lib_path(cpp_dir: str = _CPP_DIR, machine: str | None = None) -> str:
+    """Where the library built from this source on this architecture lives:
+    build/libqecore-<hash of core.cc, Makefile and machine>.so."""
+    h = hashlib.sha256((machine or platform.machine()).encode())
+    for name in ("core.cc", "Makefile"):
+        with open(os.path.join(cpp_dir, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(cpp_dir, "build",
+                        f"libqecore-{h.hexdigest()[:16]}.so")
+
+
+def build(cpp_dir: str = _CPP_DIR) -> str:
+    """Build the library unless this source's build exists; returns its
+    path. Builds to a private name and renames, so concurrent processes
+    never load a half-written file."""
+    path = lib_path(cpp_dir)
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        subprocess.run(["make", "-s", f"OUT={tmp}"], cwd=cpp_dir,
+                       check=True)
+        os.replace(tmp, path)
+    return path
 
 
 def _load() -> ctypes.CDLL:
@@ -41,12 +63,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        stale = (not os.path.exists(_LIB_PATH)) or (
-            os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)
-        )
-        if stale:
-            _build()
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(build())
         u64, u32, f32p, u32p, u64p = (
             ctypes.c_uint64,
             ctypes.c_uint32,

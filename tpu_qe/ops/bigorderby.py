@@ -37,7 +37,7 @@ orders by (a DESC, b ASC) — the mixed-direction shape the in-core
 operator ships.
 
 Reference contrast: the reference sorts a single u64 plane in one
-transport (/root/reference/src/main.rs:60-74,727); this is the SQL
+queue submit (reference src/main.rs:60-74,727); this is the SQL
 ORDER BY surface at data sizes beyond single-pass reach.
 """
 
@@ -171,7 +171,7 @@ def _bucket_fn(n_runs: int, cap_seg: int, a_card: int, seed: int,
             valid, (st1 == w1) & (st2 == w2) & (st3 == w3)
             & (spay == wpay), True))
         # exact u64 running index sum (permutation certificate; u32
-        # pair — x64 stays off on TPU, see segscan.cumsum_u64_pair)
+        # pair — x64 stays off, see segscan.cumsum_u64_pair)
         from tpu_qe.ops.segscan import cumsum_u64_pair
         clo, chi = cumsum_u64_pair(jnp.where(valid, sidx, 0))
         acc_lo, acc_hi = _u64_add(carry[4], carry[5], clo[-1], chi[-1])

@@ -114,8 +114,7 @@ def join_aggregate_big(n_l: int, n_r: int, n_groups: int = 1 << 16,
     # the bucket shape (cap_l) is decided inside join_big's planning, so
     # the partial-aggregate executable AOT-compiles lazily at the FIRST
     # consume call — its compile time is tracked and excluded from the
-    # reported wall time (CLAUDE.md: never benchmark remote compiles),
-    # like every other compile in the big drivers
+    # reported wall time, like every other compile in the big drivers
     state = {"exec": None, "compile_s": 0.0}
 
     def consume(b, bucket):

@@ -1,4 +1,4 @@
-"""Out-of-core window functions on one chip (rows > one program's HBM).
+"""Out-of-core window functions on one device (rows > one program's HBM).
 
 The same composition law that scales windows across devices
 (exchange/dwindow.py) scales them past HBM: a window is a segmented scan

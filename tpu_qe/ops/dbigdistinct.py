@@ -24,7 +24,7 @@ capacity) is DETECTED exactly; closed-form on-device verification per
 group over the structured data model of bigdistinct (group g holds
 n//G (+1) rows with min(count, V) distinct values).
 
-Reference contrast: single device, one transport
+Reference contrast: single device, one queue submit
 (/root/reference/src/main.rs:727); SURVEY §2c mandates the scaled
 composition — applied to the dedup-shaped aggregate.
 """

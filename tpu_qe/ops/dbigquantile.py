@@ -20,7 +20,7 @@ range, so the union across the mesh is bit-identical to the single-chip
 data at the same n (tests assert answers match quantile_big's and the
 regenerated-key numpy oracle).
 
-Reference contrast: the reference is one device, one transport
+Reference contrast: the reference is one device, one queue submit
 (/root/reference/src/main.rs:727); SURVEY §2c mandates the scaled
 composition, applied here to the selection family.
 """
@@ -155,8 +155,8 @@ def quantile_big_distributed(n: int, qs, mesh: Mesh,
         spec = canon_qs(qs)
         ranks = tuple(disc_rank(num, sh, n) for num, sh in spec)
 
-    # AOT-compile outside the timed region (remote compiles cost
-    # minutes — CLAUDE.md; same discipline as ops/bigquantile.py)
+    # AOT-compile outside the timed region (same discipline as
+    # ops/bigquantile.py)
     mk = _make_runs_dist.lower(
         jnp.uint32(0), mesh=mesh, runs_per_dev=runs_per_dev,
         run_size=run_size, seed=seed, key_bits=key_bits).compile()

@@ -30,7 +30,7 @@ Data model: as ops/bigsetops.py (side A keys = idx mod g_a, side B
 keys = idx mod g_b + offset); sharding rows by contiguous index blocks
 leaves the global multiset unchanged, so the same closed forms verify.
 
-Reference contrast: single device, one transport
+Reference contrast: single device, one queue submit
 (/root/reference/src/main.rs:727); SURVEY §2c mandates the scaled
 composition — applied to set algebra.
 """

@@ -1,6 +1,6 @@
 """Filter / stream compaction over columnar tables.
 
-TPU-native selection: static shapes are mandatory under jit, so a filter
+Selection under jit: static shapes are mandatory, so a filter
 returns the same-length table with all selected rows compacted (stably) to
 the front plus the selected-row count — the vectorized "selection vector"
 formulation. Compaction rides the engine's sorting machinery (a 1-bit-key

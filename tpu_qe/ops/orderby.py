@@ -2,7 +2,7 @@
 
 SQL's `ORDER BY a DESC, b ASC, c` over a columnar Table as ONE
 `lax.sort` with `num_keys` — the comparison-sort core the whole engine
-rides (BASELINE.md: lax.sort IS this chip's envelope for ordering).
+rides.
 Each key column contributes its order-preserving u32 bit planes
 (tpu_qe.bits.sortable_u32; U64 keys contribute hi then lo), DESC inverts
 the plane bits (~x reverses unsigned order — a bijection, undone on

@@ -1,21 +1,10 @@
 """Top-k selection over columnar tables (ORDER BY ... LIMIT k).
 
-Implementation is a full stable sort + head. That is a MEASURED decision,
-not a shortcut — selection has no fast primitive on this hardware class
-(v5e, 64M rows, k=100, 2026-08-17):
-
-  full sort + head (xla_tiebreak)          302 ms   <- shipped
-  XLA TopK HLO (lax.top_k, k=1424)         248 ms
-  sampled threshold + stable compaction    757 ms
-
-The threshold-prune design (sample quantile threshold -> mask -> compact
-survivors -> tiny sort) fails on two hardware facts: (a) compaction IS a
-sort on TPU (no scatter), and the 1-bit-key partition carries the same
-payload bytes as the full sort, so pruning saves only key-comparison
-work, which is not the bottleneck; (b) `lax.cond` fallback structure
-executes both branches under jit on this backend. XLA's native TopK HLO
-is itself ~80% of a full sort at selection-sized k. The sort path is
-within ~20% of every alternative and is exact, stable, and simple.
+Implementation is a full stable sort + head: exact, stable and simple.
+The alternatives — XLA's TopK HLO (lax.top_k) and a sampled threshold +
+stable compaction + tiny sort — were not faster on the accelerator this
+engine was first written for, where compaction was itself a sort. Which
+is fastest on a given device is an open measurement.
 
 The reference has no query operators; this extends SURVEY §7's operator
 mandate (filter / aggregate / join) with the ORDER BY ... LIMIT shape on

@@ -5,7 +5,7 @@ partitioned, ordered rows — the scan-shaped half of SQL analytics that
 GROUP BY (ops/aggregate.py) does not cover because its output is one row
 PER INPUT ROW, not one per group.
 
-TPU formulation: ONE sort by (partition key, order, position) puts every
+Formulation: ONE sort by (partition key, order, position) puts every
 partition contiguous and internally ordered (position as the final sort
 key buys SQL's stable tie-break while the sort stays unstable/minimal,
 the house trick from ops/aggregate.py); after that every window function
@@ -716,11 +716,10 @@ def _range_minmax(agg: str, v, sorder, odt, x, is_new, order_new,
     partition masking needed — reads stay inside one partition by
     construction), then frame = op(P_j[s], P_j[t-2^j+1]) at
     j = floor(log2(t-s+1)), read with TWO flat n-element gathers into
-    the (L*n,) table. Gathers run at XLA take's measured ~68 M elem/s
-    (BASELINE.md) — this is the one window verb that pays them; every
-    sort-based alternative measured needs the same L planes as sort
-    payload operands (~L*0.07 key-weights, no cheaper) and far more
-    peak HBM. n is capped at 2^25 per call (3.4 GB table)."""
+    the (L*n,) table — this is the one window verb that pays gathers; a
+    sort-based alternative needs the same L planes as sort payload
+    operands and far more peak HBM. n is capped at 2^25 per call (3.4 GB
+    table)."""
     n = v.shape[0]
     if n > _RANGE_MM_CAP:
         raise ValueError(

@@ -1,61 +1,38 @@
-"""Multi-pass LSD radix sort drivers (single chip).
+"""u64 key sort drivers (single device).
 
-The TPU-native re-architecture of the reference's 8-pass pipeline
-(run_compute_shaders, /root/reference/src/main.rs:594-665). On the GPU every
-pass is 5 separate dispatches (histogram, 2x hierarchical scan, small scan,
-scatter) because workgroups cannot be globally ordered; under XLA the whole
-multi-pass sort is ONE jitted program and the hierarchical scan tree
-collapses into a flat cumsum (TPU grids execute sequentially per core, so a
-running carry replaces the reference's prefix-buffer cascade,
-calculate_num_items_prefix_buffers at main.rs:200-233).
+The reference's 8-pass LSD radix pipeline (run_compute_shaders,
+reference src/main.rs:594-665) issues 5 dispatches per pass
+(histogram, 2x hierarchical scan, small scan, scatter). Here the whole sort
+is one variadic ``jax.lax.sort`` over the (hi, lo) u32 word planes, which
+XLA compiles for the device; the pass schedule survives only as
+``key_bits`` (the reference's NUM_PASSES * BITS_PER_PASS semantics).
 
 Backends:
 
-- ``xla``: jax.lax.sort on the (hi, lo) word pair — the XLA-native baseline
-  every Pallas path must beat.
-- ``hybrid``: Pallas per-block histogram + stable local rank kernels
-  (tpu_qe.kernels.histogram), flat-cumsum global offsets, and the resulting
-  destination permutation applied with a rank sort. Exercises the real radix
-  dataflow end to end; the full Pallas scatter replaces the apply step.
-
-Sentinel padding: inputs are padded to a block multiple with all-ones keys,
-which sort (stably) after every real key, so truncating the tail recovers
-the answer — no masks in the kernels.
+- ``xla``: stable sort on the (hi, lo) word pair; any payloads.
+- ``xla_tiebreak``: unstable 3-key sort with payloads[0] as the third key.
+  When payloads[0] is a unique row index it returns the stable-by-key
+  result bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_qe.bits import U64, digit_schedule, masked_key, select_digit
-from tpu_qe.constants import DEFAULT_BLOCK
-from tpu_qe.kernels.histogram import block_rank_and_histogram
+from tpu_qe.bits import U64, masked_key
 
-# Default backends, by payload contract (measured on v5e, 64M keys):
-# - BEST_BACKEND: arbitrary payloads — XLA's stable fused variadic sort
-#   (195 M keys/s), the strongest general single-chip 64-bit sort.
+# Default backends, by payload contract:
+# - BEST_BACKEND: arbitrary payloads — XLA's stable variadic sort.
 # - BEST_UNIQUE_PAYLOAD_BACKEND: when payloads[0] is a unique index (the
-#   flagship (morton code, row index) shape) — the unstable 3-key
-#   tiebreak sort returns the bit-identical stable result 1.25x faster
-#   (237 M keys/s). bench.py and the pipeline consult this constant.
+#   flagship (morton code, row index) shape), the unstable 3-key tiebreak
+#   sort returns the bit-identical stable result. bench.py and the
+#   pipeline consult this constant.
 BEST_BACKEND = "xla"
 BEST_UNIQUE_PAYLOAD_BACKEND = "xla_tiebreak"
-
-
-def _pad_to_block(arrs: Sequence[jnp.ndarray], n: int, block: int,
-                  pad_values: Sequence[int]):
-    padded_n = -(-max(n, 1) // block) * block
-    if padded_n == n:
-        return list(arrs), padded_n
-    out = []
-    for a, v in zip(arrs, pad_values):
-        out.append(jnp.pad(a, (0, padded_n - n), constant_values=v))
-    return out, padded_n
 
 
 def _sort_xla(lo, hi, payloads, key_bits, stable=True):
@@ -73,10 +50,8 @@ def _sort_xla_tiebreak(lo, hi, payloads, key_bits):
     """Stable-equivalent sort when payloads[0] is a UNIQUE index.
 
     An unstable 3-key sort with the unique payload as tiebreak returns
-    exactly the stable-by-key result, and measures ~24% faster than the
-    stable 2-key sort on v5e (272 vs 336 ms at 64M): the third key costs
-    nothing extra (the payload word was being carried anyway) while the
-    is_stable flag costs a heavier sort network. This is the flagship
+    exactly the stable-by-key result: the payload word is carried anyway,
+    and the sort need not keep equal keys in order. This is the flagship
     pipeline's exact shape — the reference sorts (morton code, triangle
     index) pairs where the payload IS the unique index
     (/root/reference/src/main.rs:376-688).
@@ -91,50 +66,17 @@ def _sort_xla_tiebreak(lo, hi, payloads, key_bits):
     return res[3], res[4], [res[2]] + list(res[5:])
 
 
-def _sort_hybrid(lo, hi, payloads, key_bits, bits_per_pass, block):
-    n = lo.shape[0]
-    nb = n // block
-    row = jax.lax.broadcasted_iota(jnp.uint32, (nb, block), 0)
-    for shift, bits in digit_schedule(key_bits, bits_per_pass):
-        lo2, hi2 = lo.reshape(nb, block), hi.reshape(nb, block)
-        ranks, hist = block_rank_and_histogram(lo2, hi2, shift, bits)
-        # Flat exclusive scan of the digit-major histogram: the single scan
-        # that replaces the reference's 3-kernel scan tree
-        # (grid-sequential Pallas kernel when lane-aligned, else XLA).
-        flat = hist.reshape(-1).astype(jnp.uint32)
-        # Pad the flat histogram up to the scan kernel's 1024-lane tile so
-        # the Pallas scan is ALWAYS the path that runs (appended zeros do
-        # not change the exclusive prefix of the real region).
-        from tpu_qe.kernels.scan import exclusive_scan
-        m = flat.shape[0]
-        pm = -(-m // 1024) * 1024
-        if pm != m:
-            base = exclusive_scan(jnp.pad(flat, (0, pm - m)))[:m]
-        else:
-            base = exclusive_scan(flat)
-        # dest = base[digit, block] + local stable rank
-        d = select_digit(lo2, hi2, shift, bits)
-        dest = jnp.take(base, d * jnp.uint32(nb) + row) + ranks
-        # Apply the permutation: order all operands by destination.
-        operands = [dest.reshape(-1), lo, hi] + list(payloads)
-        res = jax.lax.sort(operands, num_keys=1, is_stable=False)
-        lo, hi, payloads = res[1], res[2], list(res[3:])
-    return lo, hi, payloads
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=("key_bits", "backend", "bits_per_pass", "block",
-                     "stable"))
+    static_argnames=("key_bits", "backend", "stable"))
 def sort_u64(key: U64, *payloads: jnp.ndarray, key_bits: int = 64,
-             backend: str = "xla", bits_per_pass: int = 8,
-             block: int = DEFAULT_BLOCK, stable: bool = True):
+             backend: str = "xla", stable: bool = True):
     """Stable sort of u64 keys (as (lo, hi) u32 pairs) with u32 payloads.
 
     Sorts by the low `key_bits` bits of the key (the reference's
     NUM_PASSES * BITS_PER_PASS semantics). Returns (U64, payloads tuple).
-    stable=False saves ~19% on the XLA backend (measured v5e, 64M keys) —
-    use it when keys are unique or payload order among equals is free.
+    stable=False lets XLA use an unstable sort — use it when keys are
+    unique or payload order among equals is free.
     """
     lo, hi = key
     n = lo.shape[0]
@@ -161,13 +103,6 @@ def sort_u64(key: U64, *payloads: jnp.ndarray, key_bits: int = 64,
                 lambda: None)
         slo, shi, spl = _sort_xla_tiebreak(lo, hi, payloads, key_bits)
         return U64(slo, shi), tuple(spl)
-    if backend == "hybrid":
-        ones = np.uint32(0xFFFFFFFF)
-        arrs, _ = _pad_to_block([lo, hi] + list(payloads), n, block,
-                                [ones, ones] + [0] * len(payloads))
-        slo, shi, spl = _sort_hybrid(arrs[0], arrs[1], arrs[2:], key_bits,
-                                     bits_per_pass, block)
-        return U64(slo[:n], shi[:n]), tuple(p[:n] for p in spl)
     raise ValueError(f"unknown backend {backend!r}")
 
 

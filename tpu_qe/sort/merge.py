@@ -2,12 +2,10 @@
 
 Merging k sorted runs pairwise costs O(log n) compare-exchange passes per
 round instead of the O(log^2 n) of re-sorting. The overlapped distributed
-sort uses this as its non-overlappable tail. NOTE the measured limit
-(BASELINE.md): at >=64M elements on v5e the jnp-level stages pay
-relayout copies that make the network SLOWER than one fused lax.sort —
-the out-of-core bucket combine therefore uses lax.sort, and this network
-is only worth it where pipelining against collectives (not stage count)
-is the objective.
+sort uses this as its non-overlappable tail. The jnp-level stages pay
+relayout copies, so the out-of-core bucket combine uses one lax.sort
+instead; this network is only worth it where pipelining against
+collectives (not stage count) is the objective.
 """
 
 from __future__ import annotations
@@ -32,15 +30,12 @@ def bitonic_merge_cols(A, B):
     power-of-two length. concat(A, reverse(B)) is bitonic; half-cleaner
     stages sort it.
 
-    TPU-shaped lowering: the naive `(blocks, 2, s)` reshape puts a
-    multi-million-element dimension in the minor position, which the TPU
-    compiler rejects at >=32M (internal allocation overflow on the
-    reshape). Instead, strides >= 256 are ROW operations on a
-    (rows, 2, s/128, 128) view — the minor dim stays the native 128
-    lanes — and once every remaining stride is < 256 the element
-    MEMBERSHIP of each aligned 256-window is final, so the tail of the
-    network collapses into one batched lax.sort over (L/256, 256)
-    windows (the shape TPUs sort at ~700 M elem/s).
+    Lowering: strides >= 256 are ROW operations on a
+    (rows, 2, s/128, 128) view, so no multi-million-element dimension
+    lands in the minor position, and once every remaining stride is
+    < 256 the element MEMBERSHIP of each aligned 256-window is final, so
+    the tail of the network collapses into one batched lax.sort over
+    (L/256, 256) windows.
     """
     m = A[0].shape[0]
     assert m == B[0].shape[0] and (m & (m - 1)) == 0, (m, B[0].shape)

@@ -307,8 +307,7 @@ class Table:
 
     def top_k(self, k: int, key: str = "key", largest: bool = False):
         """k rows with the smallest/largest u64 key, best first (stable
-        full sort + head — the measured-fastest formulation on this
-        hardware; see ops/topk.py for the rejected alternatives)."""
+        full sort + head; see ops/topk.py)."""
         from tpu_qe.ops.topk import top_k
         return top_k(self, k, key=key, largest=largest)
 

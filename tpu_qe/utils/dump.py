@@ -3,7 +3,7 @@
 Byte-compatible with the reference's cfg(morton_code_readback) artifact dump
 (/root/reference/src/main.rs:751-766): `morton_codes.txt` holds one decimal
 u64 morton code per line; `indices.txt` holds one `(x, y, z)` triangle per
-line. Used for cross-checking the TPU pipeline against the reference
+line. Used for cross-checking the device pipeline against the reference
 algorithm and for regression goldens.
 """
 

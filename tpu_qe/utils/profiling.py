@@ -1,28 +1,20 @@
 """Tracing & profiling subsystem.
 
-TPU-native equivalent of the reference's profiling hooks (SURVEY.md §5):
+The equivalent of the reference's profiling hooks (SURVEY.md §5):
 - device.start_capture()/stop_capture() frame captures for NSight
   (/root/reference/src/main.rs:718,729)  ->  jax.profiler trace sessions
 - insert_debug_marker per compute pass (main.rs:588,601,611,630,644,662)
   ->  jax.named_scope / jax.profiler.TraceAnnotation around each kernel
 - the windowed mode that exists only so NSight attaches (README.md:5-7)
   ->  not needed: traces are written to disk and viewed in TensorBoard/XProf
-
-plus what the reference lacks: per-kernel achieved-bandwidth counters
-against the speed-of-light model (BASELINE.md).
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import logging
-from typing import Callable
 
 import jax
-
-from tpu_qe.bench.sol import hbm_peak_bytes_per_s
-from tpu_qe.utils.timing import measure_chained
 
 log = logging.getLogger("tpu_qe")
 
@@ -51,47 +43,3 @@ def marker(name: str):
     the name shows up in XProf timelines and HLO metadata.
     """
     return jax.named_scope(name)
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelStats:
-    """Achieved-vs-speed-of-light accounting for one kernel."""
-
-    name: str
-    seconds: float
-    bytes_moved: int
-    elements: int
-
-    @property
-    def achieved_gbps(self) -> float:
-        return self.bytes_moved / self.seconds / 1e9 if self.seconds else 0.0
-
-    @property
-    def sol_fraction(self) -> float:
-        peak = hbm_peak_bytes_per_s()
-        return (self.bytes_moved / peak) / self.seconds if self.seconds else 0.0
-
-    @property
-    def elements_per_s(self) -> float:
-        return self.elements / self.seconds if self.seconds else 0.0
-
-    def row(self) -> str:
-        return (f"{self.name:<32} {self.seconds * 1e3:8.2f} ms "
-                f"{self.achieved_gbps:8.1f} GB/s  "
-                f"{self.sol_fraction * 100:5.1f}% SOL  "
-                f"{self.elements_per_s / 1e6:8.0f} Melem/s")
-
-
-def profile_kernel(name: str, chain_fn: Callable[[int], Callable],
-                   bytes_moved: int, elements: int,
-                   k_small: int = 1, k_big: int = 5) -> KernelStats:
-    """Differentially time a kernel and report bandwidth vs SOL.
-
-    chain_fn(k) must return a zero-arg callable running the kernel k times
-    chained (see tpu_qe.utils.timing.measure_chained for why).
-    """
-    secs = measure_chained(chain_fn, k_small, k_big)
-    stats = KernelStats(name=name, seconds=secs, bytes_moved=bytes_moved,
-                        elements=elements)
-    log.info("%s", stats.row())
-    return stats
